@@ -23,8 +23,6 @@ MODULES = [
     "waterlily_tpu.ops.convect",
     "waterlily_tpu.ops.poisson",
     "waterlily_tpu.ops.multigrid",
-    "waterlily_tpu.ops.pallas_stencil",
-    "waterlily_tpu.ops.pallas_kernels",
     "waterlily_tpu.parallel.mesh",
     "waterlily_tpu.parallel.halo",
     "waterlily_tpu.models.cases",

@@ -67,9 +67,9 @@ def make_force_fn(Dm=16, Re=500, U=1.0, n_steps=20):
 
 
 def main():
-    # defaults are sized for the 1-core CPU CI box (compile-bound there);
-    # on a TPU, Dm=32+ and dozens of members compile in similar time and
-    # the members run concurrently on-chip
+    # defaults are sized for a CPU CI box (compile-bound there); on a GPU,
+    # Dm=32+ and dozens of members compile in similar time and the members
+    # run concurrently on the card
     xis = jnp.linspace(0.5, 4.0, 8)
     sweep = jax.jit(jax.vmap(make_force_fn()))
     coeffs = jax.block_until_ready(sweep(xis))

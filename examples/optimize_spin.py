@@ -16,10 +16,8 @@ Poisson solve per projection instead of storing every smoother iterate —
 the memory-feasible mode at 256³-class grids (FD-pinned in
 tests/test_grad.py::test_implicit_grad_through_body_measurement).
 
-Runs on the CPU backend in f64: differentiation uses the XLA solver path
-(the fused Pallas TPU smoother has no autodiff rule — the f32 TPU
-dispatch would fail under reverse-mode; see tests/test_grad.py, which
-pins gradient == finite differences on the same configuration).
+Runs on the default device in f64 (tests/test_grad.py pins gradient ==
+finite differences on the same configuration).
 """
 import os
 import sys
@@ -29,7 +27,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 from waterlily_tpu.body import AutoBody, measure_fields

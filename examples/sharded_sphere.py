@@ -1,7 +1,7 @@
 """Spatially-sharded 3D sphere across all available devices.
 
-On a multi-chip TPU slice this decomposes the grid over the ICI mesh; on a
-single host it can be tried with
+On a multi-GPU host this decomposes the grid over the cards; without
+one it can be tried with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu.
 
 Run:  python examples/sharded_sphere.py

@@ -10,7 +10,7 @@ at FIXED h.  Reference analog: the reference's sphere demo
 (README.md:118-125) also runs a small box and reports qualitative flow
 only — this probe quantifies the box effect.
 
-Run on the real TPU: python scripts/cd_confinement.py
+Run on a GPU: python scripts/cd_confinement.py
 """
 import math
 import sys

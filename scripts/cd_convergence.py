@@ -6,7 +6,7 @@ to a settled drag plateau and reports mean Cd vs the literature value
 statement of how close the solver is to the "force coefficients within
 1%" north star at each affordable resolution (BASELINE.md).
 
-Run on the real TPU: python scripts/cd_convergence.py
+Run on a GPU: python scripts/cd_convergence.py
 """
 import math
 import sys

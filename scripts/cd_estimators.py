@@ -1,6 +1,6 @@
 """Force-estimator study: can a better quadrature close the Cd deficit?
 
-The round-4 resolution ladder (docs/ROUND4.md) measured the laminar-sphere
+The resolution ladder (docs/assets/cd_ladder.csv) measured the laminar-sphere
 drag ~13-20% below literature at affordable resolutions and attributed it
 to O(h) BDIM smearing.  That deficit has two possible sources: (a) the
 *measurement* — the reference estimator integrates p and the strain rate

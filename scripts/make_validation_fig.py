@@ -1,7 +1,7 @@
 """Regenerate docs/assets/validation.png from the checked-in measurements.
 
 Panel A: 3D Taylor-Green Re=1600 dissipation curves (docs/assets/tgv3d_*.npz,
-produced by scripts/tgv3d_dissipation.py on the real TPU) against the
+produced by scripts/tgv3d_dissipation.py, f32) against the
 published 512^3-spectral DNS peak window.  Panel B: the Re=100 sphere-drag
 resolution ladder (scripts/cd_convergence.py) with the first-order
 Richardson extrapolation through the last three rungs.
@@ -23,10 +23,10 @@ ASSETS = os.path.join(os.path.dirname(os.path.dirname(
 SURF, INK, INK2 = "#fcfcfb", "#0b0b0b", "#52514e"
 COLORS = {64: "#2a78d6", 128: "#eb6834", 256: "#1baf7a"}
 
-# scripts/cd_convergence.py (TPU, round 4)
+# scripts/cd_convergence.py (f32 runs)
 CD_RADII = np.array([6, 8, 12, 16, 24, 32])
 CD_VALS = np.array([0.8672, 0.8798, 0.9057, 0.9234, 0.9418, 0.9513])
-# scripts/cd_estimators.py surface-extrapolated sampling (TPU, round 4),
+# scripts/cd_estimators.py surface-extrapolated sampling (f32 runs),
 # same flows/box: the O(h) deficit left is the flow's, not the estimator's
 CDX_RADII = np.array([6, 8, 12, 16, 24])
 CDX_VALS = np.array([0.9808, 1.0189, 1.0681, 1.0935, 1.1139])

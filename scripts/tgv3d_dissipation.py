@@ -14,7 +14,7 @@ Units: the case is built with kappa = 2 pi / L, so one DNS time unit
 `Simulation.sim_time` (tU/L).  KE here is the volume-mean 0.5|u|^2 per
 unit volume in U^2 units — the DNS normalization (initial value 1/8).
 
-Run on the real TPU: python scripts/tgv3d_dissipation.py [L ...]
+Run on a GPU: python scripts/tgv3d_dissipation.py [L ...]
 """
 import math
 import sys

@@ -2,7 +2,7 @@
 
 The reference is forward-mode only (ForwardDiff duals, maintests.jl:254-278);
 `FlowConfig(fixed_iters=k)` statically unrolls the pressure solve so
-`jax.grad` flows through the full predictor/corrector step — the TPU build's
+`jax.grad` flows through the full predictor/corrector step — this build's
 beyond-parity differentiator (adjoint optimization, flow control, shape
 gradients).
 
@@ -237,13 +237,10 @@ def test_simulation_implicit_diff_plumbs_and_validates():
         Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, fixed_iters=1)
     with pytest.raises(ValueError):
         Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, log=True)
-    with pytest.raises(ValueError):
-        # the adjoint transposes the f32 operator; a primal converged
-        # against the bf16-rounded A16 would violate A x* = Pz
+    with pytest.raises(TypeError):
+        # the bf16 operator shadows are gone: the adjoint always transposes
+        # the same f32 operator the primal solve used
         Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, op_bf16=True)
-    # ... and the module default cannot silently re-enable the shadows
-    sim = Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True)
-    assert sim._op_bf16 is False
 
     sim = Simulation((8, 8), (1.0, 0.0), 8, nu=0.1, implicit_diff=True)
     sim.step()

@@ -80,7 +80,7 @@ def test_vtk_restart_3d(tmp_path):
 
 def test_vtk_restart_first_step_parity(tmp_path):
     """A restart-continued run matches an uninterrupted one for the first
-    post-restart step (VERDICT r4 weak #4).  The reference recomputes the
+    post-restart step (a restart must not perturb the trajectory).  The reference recomputes the
     next dt as CFL of the restored u (ReadVTKExt.jl:40) — identical to an
     uninterrupted run's dt (src/Flow.jl:168) — so the trajectories must
     agree; the only slack allowed is the jit-vs-eager ULP on the

@@ -7,7 +7,7 @@ pin the two headline validation flows at CI-affordable resolution:
 - 2D circle at Re=100: established vortex shedding with mean drag and
   Strouhal number.  At full resolution (256×128, tU/L→130) this framework
   measures Cd=1.74, St=0.22 — consistent with 25%-blockage literature
-  (docs/PERF.md).  At the reduced (96,64) resolution used here the drag
+  (an f32 run).  At the reduced (96,64) resolution used here the drag
   coefficient is grid-sensitive (coarser sphere ⇒ lower Cd ≈ 1.52) while
   the Strouhal number is already converged; the windows below encode that.
 - 3D Taylor-Green vortex at Re=1600: the transition benchmark.  KE must
@@ -98,8 +98,8 @@ def test_tgv3d_dissipation_peak_dns():
     The volume-mean KE (DNS normalization: 1/8 at t=0) decays with a
     dissipation-rate peak eps(t*) = -dKE/dt* of ~0.0117-0.0122 at
     t* ~ 8.2-9.0 (Brachet et al.; HiOCFD C3.5 512^3 spectral reference).
-    At 64^3 this solver measures peak 0.01199 at t*=8.34 on TPU f32
-    (scripts/tgv3d_dissipation.py; 128^3/256^3 curves in docs/ROUND4.md)
+    At 64^3 this solver measures peak 0.01199 at t*=8.34 in f32
+    (scripts/tgv3d_dissipation.py; 128^3/256^3 curves in docs/assets)
     — INSIDE the DNS window.  The windows below bound both the peak value
     and its time; t* = 2*pi*t_sim for this case's kappa = 2*pi/L."""
     import math
@@ -121,13 +121,13 @@ def test_tgv3d_dissipation_peak_dns():
 @pytest.mark.skipif(os.environ.get("WATERLILY_NIGHTLY") != "1",
                     reason="sphere drag to tU/L=12: nightly tier (~5 min)")
 def test_sphere_drag_re100():
-    """Laminar-sphere drag regression (round-3 verdict item 3): Re=100,
+    """Laminar-sphere drag regression: Re=100,
     steady axisymmetric wake, literature Cd ≈ 1.09 (Johnson & Patel 1999,
     Roos & Willmarth).  At the radius-6 BDIM resolution used here the
     drag plateaus at Cd = 0.867 (calibrated to tU/L=25: converged to 4
     digits by tU/L≈10) — ~20% below literature, consistent with the 2D
     circle's coarse-grid sensitivity (1.52 at reduced vs 1.74 at full
-    resolution, docs/PERF.md).  The window pins the solver against
+    resolution).  The window pins the solver against
     regressions; the bench records the radius-8 headline Cd every round
     (bench.py `mean_cd_tU50_55`)."""
     import math

@@ -43,7 +43,7 @@ def test_sim_gif_smoke(tmp_path):
 
 def test_log_captured_by_fast_stepping_paths(tmp_path):
     """`steps()`/`run_until` capture one (predictor, corrector) trace pair
-    per completed step, exactly like `step()` (VERDICT r4 weak #3; the
+    per completed step, exactly like `step()` (the
     reference's @log is unconditional, src/util.jl:4-24) — and `write_log`
     emits one phase block per captured trace."""
     sim = Simulation((32, 32), (1, 0), 8, nu=0.03, dtype=jnp.float32,

@@ -37,6 +37,34 @@ def poisson_setup(N, ml=False):
     return err, int(n), lev
 
 
+def test_poisson_level_pytree_static_fields():
+    """`PoissonLevel` is a JAX-only pytree: L/D/iD are its leaves, the
+    static fields are metadata (part of the jit cache key, never traced),
+    and `.replace` returns a new level without touching the old one."""
+    import dataclasses
+    import jax
+
+    lev = make_level(jnp.ones((2, 6, 6), f32), perdir=(1,))
+    assert len(jax.tree_util.tree_leaves(lev)) == 3
+    traces = []
+
+    @jax.jit
+    def f(lv):
+        traces.append((lv.perdir, lv.sharded))
+        assert isinstance(lv.perdir, tuple) and isinstance(lv.c, float)
+        return jnp.sum(lv.D) * lv.c
+
+    f(lev)
+    f(lev.replace(L=lev.L * 2))             # new leaf values: no retrace
+    assert len(traces) == 1
+    lev2 = lev.replace(sharded=True, c=2.0)
+    assert float(f(lev2)) == pytest.approx(2 * float(jnp.sum(lev.D)))
+    assert traces == [((1,), False), ((1,), True)]
+    assert lev.sharded is False and lev.c == 1.0
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        lev.c = 3.0
+
+
 def test_diag_oracle():
     # maintests.jl:84-85: exact D and iD on a 5x5 grid
     L = bc_vector(jnp.ones((2, 5, 5), f32), (0.0, 0.0))
@@ -106,8 +134,8 @@ def test_mg_3d():
 def test_solver_divergence_safeguard():
     """The adaptive solve loops exit when an iteration doubles r·r instead
     of amplifying a diverging/floored smoother to NaN over the remaining
-    itmx trips (the runaway observed when a reduced-precision operator's
-    convergence floor sits above tol — scripts/solve_local.py)."""
+    itmx trips (the runaway seen when a solve's convergence floor sits
+    above tol)."""
     D = 2
     N = (10, 10)
     L = bc_vector(jnp.ones((D,) + N, f32), (0.0,) * D)

@@ -133,7 +133,7 @@ def test_mesh_for_divides_axes():
 ])
 def test_shardmap_mult_matches_dense(S, axes):
     """The explicit shard_map + ppermute halo-exchange operator equals the
-    dense Poisson mult (the ICI-visible alternative to the GSPMD path) —
+    dense Poisson mult (the source-visible alternative to the GSPMD path) —
     including multi-axis meshes (corner propagation + per-axis offsets)."""
     from waterlily_tpu.parallel.halo import shardmap_mult
     from waterlily_tpu.parallel.mesh import mesh_for
@@ -260,35 +260,12 @@ def test_shardmap_pcg_matches_dense(S):
     assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-6)
 
 
-def test_shardmap_pcg_pallas_interpret_matches():
-    """Pallas kernels compose with shard_map (per-shard blocked mult) —
-    exercised in interpret mode on the virtual CPU mesh."""
-    from waterlily_tpu.parallel.shard_smooth import shardmap_pcg
-    from waterlily_tpu.parallel.mesh import mesh_for
-    from waterlily_tpu.ops.poisson import make_level, pcg, residual
-    S = (16, 16, 16)
-    key = jax.random.PRNGKey(6)
-    L = jnp.abs(jax.random.normal(key, (3,) + S, f32)) * 0.2 + 0.5
-    lev = make_level(L)
-    x = jnp.zeros(S, f32)
-    z = jax.random.normal(key, S, f32) * 1e-2
-    r = residual(lev, x, z)
-    # it=2: interpret-mode Mosaic over 8 virtual devices is slow; two
-    # iterations already cover the halo'd-block + dot plumbing
-    x_ref, r_ref = jax.jit(lambda l, x, r: pcg(l, x, r, it=2))(lev, x, r)
-    mesh = mesh_for(S, 8)
-    lev_s = lev.replace(mesh=mesh, sharded=True)
-    x_s, r_s = shardmap_pcg(lev_s, x, r, it=2, pallas="interpret")
-    assert np.allclose(np.asarray(x_ref), np.asarray(x_s), atol=1e-6)
-    assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-6)
-
-
 @pytest.mark.parametrize("S", [(32, 32), (16, 16, 32)])
 def test_shardmap_increment_residual_match_dense(S):
     """The shard_map increment (jacobi/V-cycle fine stencils) and residual
     (body-masked + psum mean correction) equal the dense forms — the
     remaining fine-level smoother-ladder phases of the multi-chip fast
-    path (round-3 verdict item 1b)."""
+    path."""
     from waterlily_tpu.parallel.shard_smooth import can_shardmap
     from waterlily_tpu.parallel.mesh import mesh_for
     from waterlily_tpu.ops.poisson import make_level, increment, residual
@@ -314,32 +291,6 @@ def test_shardmap_increment_residual_match_dense(S):
         lev, x, r_ref, eps)
     x1s, r1s = jax.jit(lambda l, x, r, e: increment(l, x, r, e))(
         lev_s, x, r_s, eps)
-    assert np.allclose(np.asarray(x1), np.asarray(x1s), atol=1e-6)
-    assert np.allclose(np.asarray(r1), np.asarray(r1s), atol=1e-5)
-
-
-def test_shardmap_increment_residual_pallas_interpret():
-    """The per-shard blocked kernels inside the shard_map increment/residual
-    (the compiled-on-TPU branch) — interpret mode on the virtual mesh."""
-    from waterlily_tpu.parallel.shard_smooth import (shardmap_increment,
-                                                     shardmap_residual)
-    from waterlily_tpu.parallel.mesh import mesh_for
-    from waterlily_tpu.ops.poisson import make_level, increment, residual
-    from waterlily_tpu.grid import mask_interior
-    S = (16, 16, 16)
-    key = jax.random.PRNGKey(15)
-    L = jnp.abs(jax.random.normal(key, (3,) + S, f32)) * 0.2 + 0.5
-    lev = make_level(L)
-    mesh = mesh_for(S, 8)
-    lev_s = lev.replace(mesh=mesh, sharded=True)
-    x = jax.random.normal(jax.random.PRNGKey(16), S, f32)
-    z = mask_interior(jax.random.normal(jax.random.PRNGKey(17), S, f32))
-    r_ref = residual(lev, x, z)
-    r_s = shardmap_residual(lev_s, x, z, pallas="interpret")
-    assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-5)
-    eps = mask_interior(jax.random.normal(jax.random.PRNGKey(18), S, f32))
-    x1, r1 = increment(lev, x, r_ref, eps)
-    x1s, r1s = shardmap_increment(lev_s, x, r_ref, eps, pallas="interpret")
     assert np.allclose(np.asarray(x1), np.asarray(x1s), atol=1e-6)
     assert np.allclose(np.asarray(r1), np.asarray(r1s), atol=1e-5)
 
@@ -380,20 +331,6 @@ def test_shardmap_conv_diff_matches_dense(S):
     r_ref = jax.jit(lambda u: conv_diff(u, 0.01, (), quick, False))(u)
     mesh = mesh_for(S, 8)
     r_s = jax.jit(lambda u: shardmap_conv_diff(mesh, u, 0.01, quick))(u)
-    assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-5)
-
-
-def test_shardmap_conv_diff_pallas_interpret_matches():
-    """The per-shard blocked conv kernels (global-index base offsets) under
-    shard_map equal the dense tendency — interpret mode, virtual mesh."""
-    from waterlily_tpu.parallel.shard_smooth import shardmap_conv_diff
-    from waterlily_tpu.parallel.mesh import mesh_for
-    from waterlily_tpu.ops.convect import conv_diff, quick
-    S = (16, 16, 16)
-    u = jax.random.normal(jax.random.PRNGKey(8), (3,) + S, f32)
-    r_ref = jax.jit(lambda u: conv_diff(u, 0.01, (), quick, False))(u)
-    mesh = mesh_for(S, 8)
-    r_s = shardmap_conv_diff(mesh, u, 0.01, quick, pallas="interpret")
     assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-5)
 
 
@@ -445,32 +382,6 @@ def test_implicit_diff_grad_under_mesh_matches_single():
     assert np.isfinite(g8) and abs(g8) > 1.0
     assert np.isclose(g1, g8, rtol=1e-6), (g1, g8)
 
-def test_conv_diff_threads_pallas_ok_into_shardmap(monkeypatch):
-    """pallas_ok=False (reverse-AD programs: Mosaic has no vjp rule) must
-    reach the per-shard kernel dispatch of the shard_map branch, not just
-    the direct Pallas gate — on a real TPU mesh the shardmap default would
-    otherwise pick compiled kernels inside jax.grad and error."""
-    from waterlily_tpu.parallel import shard_smooth
-    from waterlily_tpu.parallel.mesh import mesh_for
-    from waterlily_tpu.ops import convect
-    from waterlily_tpu.ops.convect import conv_diff, quick
-
-    S = (16, 16, 32)
-    u = jnp.ones((3,) + S, jnp.float32)
-    mesh = mesh_for(S, 8)
-    seen = {}
-
-    def spy(mesh_, u_, nu_, limiter_, pallas=None, perdir=()):
-        seen["pallas"] = pallas
-        return jnp.zeros_like(u_)
-
-    monkeypatch.setattr(shard_smooth, "shardmap_conv_diff", spy)
-    conv_diff(u, 0.01, (), quick, sharded=True, mesh=mesh, pallas_ok=False)
-    assert seen["pallas"] == "off"
-    conv_diff(u, 0.01, (), quick, sharded=True, mesh=mesh, pallas_ok=True)
-    assert seen["pallas"] is None  # kernel-size/backend auto-dispatch
-
-
 def test_shard_solve_restrict_prolongate_exact():
     """The one-region solve's transfers vs the dense forms: restriction is
     BITWISE the dense reshape-sum (each coarse cell is one shard's dense-
@@ -479,7 +390,6 @@ def test_shard_solve_restrict_prolongate_exact():
     from waterlily_tpu.parallel.halo import spatial_specs
     from waterlily_tpu.parallel.shard_solve import (restrict_replicated,
                                                     prolongate_local)
-    from waterlily_tpu.parallel.shard_smooth import get_shard_map
     from waterlily_tpu.ops.multigrid import restrict, prolongate
     from waterlily_tpu.grid import mask_interior
     from jax.sharding import PartitionSpec as P
@@ -491,7 +401,7 @@ def test_shard_solve_restrict_prolongate_exact():
         r = mask_interior(jax.random.normal(jax.random.PRNGKey(3), S, f32))
         rc_ref = restrict(r)
 
-        fn = get_shard_map()(lambda r_l: restrict_replicated(mesh, S, r_l),
+        fn = jax.shard_map(lambda r_l: restrict_replicated(mesh, S, r_l),
                              mesh=mesh, in_specs=(sc,), out_specs=P(),
                              check_vma=False)
         rc = jax.jit(fn)(r)
@@ -500,7 +410,7 @@ def test_shard_solve_restrict_prolongate_exact():
         Sc = rc_ref.shape
         xc = mask_interior(jax.random.normal(jax.random.PRNGKey(4), Sc, f32))
         eps_ref = prolongate(xc, S)
-        pf = get_shard_map()(lambda xc_r: prolongate_local(mesh, S, xc_r),
+        pf = jax.shard_map(lambda xc_r: prolongate_local(mesh, S, xc_r),
                              mesh=mesh, in_specs=(P(),), out_specs=sc,
                              check_vma=False)
         eps = jax.jit(pf)(xc)
@@ -508,7 +418,7 @@ def test_shard_solve_restrict_prolongate_exact():
 
 
 def test_shard_solve_matches_dense():
-    """shardmap_ml_solve (ONE region: local fine kernels + replicated
+    """shardmap_ml_solve (ONE region: local fine stencils + replicated
     coarse) vs the dense ml_solve: same iteration count, matching fields
     (dots differ only by psum association)."""
     from waterlily_tpu.parallel.mesh import mesh_for
@@ -574,7 +484,6 @@ def test_bc_vector_local_bitwise():
     from waterlily_tpu.parallel.mesh import mesh_for
     from waterlily_tpu.parallel.halo import spatial_specs
     from waterlily_tpu.parallel.shard_step import bc_vector_local
-    from waterlily_tpu.parallel.shard_smooth import get_shard_map
     from waterlily_tpu.ops.bc import bc_vector
     for S, save_exit in [((18, 10, 10), False), ((18, 10, 10), True),
                          ((16, 32), False)]:
@@ -584,26 +493,22 @@ def test_bc_vector_local_bitwise():
         ref = bc_vector(u, A, save_exit=save_exit)
         mesh = mesh_for(S, 8)
         sc, vec = spatial_specs(mesh, D)
-        fn = get_shard_map()(
+        fn = jax.shard_map(
             lambda u_l: bc_vector_local(mesh, S, u_l, A, save_exit),
             mesh=mesh, in_specs=(vec,), out_specs=vec, check_vma=False)
         out = jax.jit(fn)(u)
         assert np.array_equal(np.asarray(ref), np.asarray(out)), (S, save_exit)
 
 
-@pytest.mark.parametrize("pallas", ["off", "interpret"])
-def test_shard_step_region_matches_dense(pallas):
+def test_shard_step_region_matches_dense():
     """The ONE-region whole step (shardmap_mom_step) matches the dense
-    mom_step — velocity, pressure, dt, pois_n — including exitBC.
-    ``interpret`` exercises the per-shard kernel tier (BC/div/projection
-    base-offset kernels + blocked stencils) on the virtual mesh."""
+    mom_step — velocity, pressure, dt, pois_n — including exitBC."""
     from waterlily_tpu.parallel.mesh import mesh_for, constrain_levels
     from waterlily_tpu.parallel import mesh as pmesh
     from waterlily_tpu.parallel.shard_step import (shardmap_mom_step,
                                                    can_shard_step)
 
-    for kw in ((dict(), dict(exitBC=True)) if pallas == "off"
-               else (dict(exitBC=True),)):
+    for kw in (dict(), dict(exitBC=True)):
         cfg = FlowConfig(D=3, S=(18, 18, 18), U=(1.0, 0.0, 0.0), nu=0.01,
                          dtype=f32, **kw)
 
@@ -625,8 +530,7 @@ def test_shard_step_region_matches_dense(pallas):
             assert can_shard_step(cfg._replace(sharded=True), levs)
             out, aux = jax.jit(
                 lambda s, l: shardmap_mom_step(cfg._replace(sharded=True),
-                                               l, s, pallas=pallas))(
-                state, levs)
+                                               l, s))(state, levs)
         finally:
             pmesh.SHARDMAP_MIN_CELLS = old
             sstep.WHOLE_STEP_REGION = old_flag
@@ -641,12 +545,10 @@ def test_shard_step_region_matches_dense(pallas):
 @pytest.mark.skipif(__import__("os").environ.get("WATERLILY_NIGHTLY") != "1",
                     reason="512^3 AOT compile: nightly tier (several minutes)")
 def test_512cubed_sharded_step_compiles_aot():
-    """Scale pin (round-3 verdict item 6): the 512³ sharded step COMPILES
-    (AOT, no execution) on the 8-device virtual mesh with per-shard
-    live-buffer bytes inside a v5e's 16 GB HBM, and its HLO contains no
-    full-field all-gather.  The cheapest available proof that the
-    multi-chip design reaches the scale it exists for (real multi-chip
-    hardware is unavailable; 320³ is the verified single-chip ceiling)."""
+    """Scale pin: the 512³ sharded step COMPILES (AOT, no execution) on the
+    8-device virtual mesh with per-shard live-buffer bytes inside 16 GiB,
+    and its HLO contains no full-field all-gather — a check of the scale
+    the multi-chip design exists for that needs no devices."""
     from waterlily_tpu.parallel.mesh import (mesh_for, state_specs,
                                              constrain_levels)
     from waterlily_tpu.parallel.mesh import mom_step_auto
@@ -686,7 +588,7 @@ def test_512cubed_sharded_step_compiles_aot():
     lowered = jax.jit(step).lower(state, tuple(levels))
     compiled = lowered.compile()
 
-    # per-shard live bytes within a v5e HBM (16 GiB); the state alone is
+    # per-shard live bytes within 16 GiB; the state alone is
     # 19 fields x 512^3 x 4B / 8 shards ~ 1.3 GB
     mem = compiled.memory_analysis()
     per_shard = int(getattr(mem, "temp_size_in_bytes", 0)) + \
@@ -712,15 +614,15 @@ def test_512cubed_sharded_step_compiles_aot():
         total += byts
         assert byts < cap, f"all-gather of {byts/2**20:.0f} MB in 512^3 HLO"
     # bounded TOTAL: two solve-region entries replicate the coarse level
-    # stacks (~400 MB each at 512^3) — ~1 ms of ICI per step, ~2% of the
-    # step; a growing total is a gather-per-op regression
+    # stacks (~400 MB each at 512^3); a growing total is a gather-per-op
+    # regression
     assert total < 1200 * 2 ** 20, \
         f"{total/2**20:.0f} MB gathered per 512^3 step"
 
 
 def test_sharded_moving_body_banded_measure():
-    """Sharded moving bodies keep the narrow-band remeasure (round-3
-    verdict item 5): under a mesh the window fields are built replicated
+    """Sharded moving bodies keep the narrow-band remeasure: under
+    a mesh the window fields are built replicated
     and resharded by the step's constraints — no dense D+1-grid autodiff
     sweep.  The sharded heaving-sphere step must match the unsharded one
     and must route through measure_fields_banded."""
@@ -766,7 +668,7 @@ def test_sharded_moving_body_banded_measure():
 
 
 # ---------------------------------------------------------------------------
-# Periodic directions on the shard_map fast path (round 5): modular wrap
+# Periodic directions on the shard_map fast path: modular wrap
 # halos (halo_exchange perdir=) + per-shard periodic ghost fills
 # (per_fill_local) make every periodic flux/stencil the uniform formula —
 # bitwise the reference's phi_uP wrap + top-face flux copy (src/Flow.jl:7,60)
@@ -778,7 +680,6 @@ def test_per_fill_local_matches_bc_scalar_periodic():
     dense `bc_scalar_periodic` (reference perBC!, src/util.jl:227-231)."""
     from waterlily_tpu.parallel.mesh import mesh_for
     from waterlily_tpu.parallel.halo import per_fill_local, spatial_specs
-    from waterlily_tpu.parallel.shard_smooth import get_shard_map
     from waterlily_tpu.ops.bc import bc_scalar_periodic
     for S, perdir in [((18, 10, 10), (0,)), ((18, 10, 10), (0, 2)),
                       ((16, 32), (0, 1))]:
@@ -787,7 +688,7 @@ def test_per_fill_local_matches_bc_scalar_periodic():
         ref = bc_scalar_periodic(a, perdir)
         mesh = mesh_for(S, 8)
         sc, _vec = spatial_specs(mesh, D)
-        fn = get_shard_map()(
+        fn = jax.shard_map(
             lambda a_l: per_fill_local(a_l, mesh, S, perdir),
             mesh=mesh, in_specs=(sc,), out_specs=sc, check_vma=False)
         out = jax.jit(fn)(a)
@@ -816,24 +717,6 @@ def test_shardmap_conv_diff_periodic_matches_dense(S, perdir):
                                                perdir=perdir))(u)
     assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-5), \
         (S, perdir)
-
-
-def test_shardmap_conv_diff_periodic_pallas_interpret():
-    """The modular periodic branch of the blocked conv kernel (uniform
-    periodic formula, no wrap refs) under shard_map — interpret mode."""
-    from waterlily_tpu.parallel.shard_smooth import shardmap_conv_diff
-    from waterlily_tpu.parallel.mesh import mesh_for
-    from waterlily_tpu.ops.convect import conv_diff, quick
-    from waterlily_tpu.ops.bc import bc_vector
-    S = (32, 16, 16)
-    perdir = (0, 1, 2)
-    u = jax.random.normal(jax.random.PRNGKey(23), (3,) + S, f32)
-    u = bc_vector(u, (0.0, 0.0, 0.0), False, perdir)
-    r_ref = jax.jit(lambda u: conv_diff(u, 0.01, perdir, quick, False))(u)
-    mesh = mesh_for(S, 8)
-    r_s = shardmap_conv_diff(mesh, u, 0.01, quick, pallas="interpret",
-                             perdir=perdir)
-    assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-5)
 
 
 @pytest.mark.parametrize("perdir", [(0,), (0, 1, 2)])
@@ -897,8 +780,7 @@ def test_shard_solve_periodic_matches_dense():
     assert np.allclose(np.asarray(r_ref), np.asarray(r_s), atol=1e-5)
 
 
-@pytest.mark.parametrize("pallas", ["off", "interpret"])
-def test_shard_step_region_periodic_matches_dense(pallas):
+def test_shard_step_region_periodic_matches_dense():
     """The ONE-region whole step on a fully-periodic config (3D TGV) matches
     the dense mom_step — the multi-chip fast path for the flagship periodic
     validation case."""
@@ -933,7 +815,7 @@ def test_shard_step_region_periodic_matches_dense(pallas):
         assert can_shard_step(cfg._replace(sharded=True), levs)
         out, aux = jax.jit(
             lambda s, l: shardmap_mom_step(cfg._replace(sharded=True),
-                                           l, s, pallas=pallas))(state, levs)
+                                           l, s))(state, levs)
     finally:
         pmesh.SHARDMAP_MIN_CELLS = old
         sstep.WHOLE_STEP_REGION = old_flag

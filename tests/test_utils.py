@@ -5,9 +5,10 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from waterlily_tpu.utils.perf import mlups, time_steps, trace_profile
-from waterlily_tpu.utils.cache import enable_compile_cache
+from waterlily_tpu.utils.cache import enable_compile_cache, cache_dir
 from waterlily_tpu.models.cases import tgv_2d
 
 
@@ -29,20 +30,31 @@ def test_trace_profile(tmp_path):
     assert found, "no profiler output written"
 
 
-def test_enable_compile_cache(tmp_path):
+@pytest.mark.parametrize("from_env", [True, False])
+def test_enable_compile_cache(tmp_path, monkeypatch, from_env):
+    """The cache lands in $JAX_COMPILATION_CACHE_DIR when it is set, and in
+    the fixed <checkout>/.jax_cache otherwise."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if from_env:
+        want = str(tmp_path / "cc")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    else:
+        want = os.path.join(repo, ".jax_cache")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     prev = jax.config.jax_compilation_cache_dir
     try:
-        d = enable_compile_cache(str(tmp_path / "cc"))
+        d = enable_compile_cache()
+        assert d == want == cache_dir()
         assert os.path.isdir(d)
         assert jax.config.jax_compilation_cache_dir == d
         # idempotent
-        assert enable_compile_cache(str(tmp_path / "cc")) == d
+        assert enable_compile_cache() == d
     finally:
         # restore the suite-wide persistent cache (conftest) — leaving the
         # config pointed at tmp_path would silently disable caching for
         # every program compiled after this test
         if prev is not None:
-            enable_compile_cache(prev)
+            jax.config.update("jax_compilation_cache_dir", prev)
 
 
 def test_run_record_sample_interval():

@@ -1,16 +1,15 @@
-"""waterlily_tpu — a TPU-native incompressible-flow framework.
+"""waterlily_tpu — an incompressible-flow framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 WaterLily.jl (reference mounted at /root/reference): unsteady incompressible
 2D/3D Navier-Stokes on a staggered Cartesian grid, immersed solid boundaries
 via the Boundary Data Immersion Method (BDIM), geometric-multigrid pressure
 solves, implicit autodiff geometry, on-device metrics/forces, checkpointing,
-VTK I/O, and spatial domain decomposition over TPU meshes.
+VTK I/O, and spatial domain decomposition over device meshes.
 
 The reference is 100% Julia with no native components (SURVEY.md §2); the
-TPU equivalent of its KernelAbstractions kernel tier is the XLA-fused
-whole-array op layer in `waterlily_tpu.ops` plus Pallas kernels for the hot
-stencils.
+equivalent of its KernelAbstractions kernel tier is the XLA-fused
+whole-array op layer in `waterlily_tpu.ops`.
 """
 from .grid import l2, linf, interp, apply_field, loc_grid, shift, interior
 from .flow import FlowState, FlowConfig, mom_step, flow_init, cfl, div

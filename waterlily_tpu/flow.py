@@ -1,6 +1,6 @@
 """Flow state and the momentum step (predictor/corrector + projection).
 
-TPU-native re-design of src/Flow.jl.  The mutable `Flow` struct becomes an
+Re-design of src/Flow.jl.  The mutable `Flow` struct becomes an
 immutable pytree `FlowState`; `mom_step!` becomes the pure function
 `mom_step(cfg, levels, state) -> (state, aux)` which is jitted *whole* —
 both pressure solves, the BDIM updates and the CFL reduction compile into a
@@ -16,9 +16,9 @@ from typing import Any, Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .grid import (interior, interior_view, interior_mask, apply_field,
+from .grid import (interior_view, interior_mask, apply_field,
                    pad_interior)
-from .ops.bc import bc_vector, bc_scalar_periodic, exit_bc
+from .ops.bc import bc_vector, exit_bc
 from .ops.convect import conv_diff, accelerate, quick
 from .ops.multigrid import ml_solve
 
@@ -52,7 +52,7 @@ class FlowConfig(NamedTuple):
     tol: float = 1e-4
     itmx: int = 32
     log: bool = False              # capture per-iteration solver residual traces
-    sharded: bool = False          # GSPMD layout: disables all Pallas dispatch
+    sharded: bool = False          # GSPMD layout: SPMD-partitionable forms
     mesh: Any = None               # device mesh: explicit shard_map fast paths
     bbox_shape: tuple | None = None  # static body-band box extents (banded BDIM)
     fixed_iters: int | None = None   # unroll exactly k pressure iterations:
@@ -111,7 +111,7 @@ def bdim(u, u0, r, V, mu0, mu1, dt):
 
 
 def bdim_banded(cfg, bbox, u, u0, r, V, mu0, mu1, dt, scale=None):
-    """Band-windowed BDIM: the TPU-native sparse immersed-boundary update.
+    """Band-windowed BDIM: the sparse immersed-boundary update.
 
     The body terms are spatially local: outside the kernel band
     ``μ₁ ≡ 0``, ``V ≡ 0`` and ``μ₀ ≡ 1`` *exactly* (measure_fields writes
@@ -119,7 +119,7 @@ def bdim_banded(cfg, bbox, u, u0, r, V, mu0, mu1, dt, scale=None):
     (src/Flow.jl:131-135) reduces to ``u += u⁰ + dt·r`` except inside a
     small box around the body.  The full blend runs only on a static-shape
     window (``cfg.bbox_shape + 2`` halo'd, dynamically positioned at
-    ``bbox``), cutting BDIM's HBM traffic ~8x at 256³.  Bitwise-equal to
+    ``bbox``), cutting BDIM's memory traffic ~8x at 256³.  Bitwise-equal to
     the dense path (up to the sign of zero).
 
     ``u=None`` selects the predictor form: interior from the blend alone,
@@ -153,69 +153,41 @@ def project(levels, u, p, dt_eff, cfg):
     μ₀-weighted pressure gradient.  Note the Poisson face coefficients are
     exactly ``flow.mu0`` (src/WaterLily.jl:77) — ``levels[0].L is mu0``.
     """
-    D = cfg.D
+    from .ops.poisson import pressure_grad_interior
     lev = levels[0]
-    from .ops.pallas_stencil import (use_project3d, project3d_pallas,
-                                     div3d_pallas)
-    fused = (not lev.banded and not cfg.sharded and not cfg.implicit_diff
-             and use_project3d(p.shape, p.dtype))
-    if fused:
-        # fused divergence + dt-scaled warm start (one sweep)
-        z, x = div3d_pallas(u, p, dt_eff)
-    else:
+    with jax.named_scope("div_project"):
         z = div(u)
         x = p * dt_eff
-    if cfg.implicit_diff:
-        # adjoint gradients: one extra Poisson solve under jax.grad instead
-        # of transposing an unrolled solver (Pallas stays off this step's
-        # pre/post sweeps so AD flows through the XLA forms)
-        from .ops.multigrid import ml_solve_implicit
-        x, n = ml_solve_implicit(levels, x, z, tol=cfg.tol, itmx=cfg.itmx)
-        tr = None
-    else:
-        out = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
-                       trace=cfg.log, fixed=cfg.fixed_iters)
-        x, r, n = out[:3]
-        tr = out[3] if cfg.log else None
-    if fused:
-        # fused velocity-correction + p-rescale sweep (equal to the XLA
-        # chain below up to FMA-contraction rounding ~1e-6; PERF.md
-        # round-3 decomposition)
-        u, p = project3d_pallas(lev.L, x, u, dt_eff)
-    else:
-        from .ops.poisson import pressure_grad_interior
+    with jax.named_scope("pressure_solve"):
+        if cfg.implicit_diff:
+            # adjoint gradients: one extra Poisson solve under jax.grad
+            # instead of transposing an unrolled solver
+            from .ops.multigrid import ml_solve_implicit
+            x, n = ml_solve_implicit(levels, x, z, tol=cfg.tol,
+                                     itmx=cfg.itmx)
+            tr = None
+        else:
+            out = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
+                           trace=cfg.log, fixed=cfg.fixed_iters)
+            x, r, n = out[:3]
+            tr = out[3] if cfg.log else None
+    with jax.named_scope("div_project"):
         upd = pressure_grad_interior(lev, x)
         u = u - pad_interior(upd, lead=1)
         p = x / dt_eff
     return u, p, (n, tr)
 
 
-CFL_PALLAS = True  # A/B knob (scripts/ab_reduce.py); kernel is bitwise-equal
 CONV_BDIM_REGION = True  # sharded conv+BDIM one-region path (A/B knob)
-# Folding the post-BDIM BC into the conv+BDIM region: measured LOSS
-# (+20 ms/step at 256³ 1-dev mesh — bc_vector_local's global-index
-# where-select cascade costs ~10 ms/call in-region vs 2.7 ms for GSPMD's
-# DUS chains; the same select-cascade penalty round 3 measured on the
-# dense path, and a big part of why the whole-step region loses).
+# Folding the post-BDIM BC into the conv+BDIM region: measured a loss on
+# the previous accelerator (a global-index where-select cascade against
+# GSPMD's DUS chains); re-measure on the card before turning it on.
 BC_IN_REGION = False
 
 
-def cfl(u, nu, dt_max=10.0, pallas_ok=False):
-    """Adaptive time step (reference `CFL`/`flux_out`, src/Flow.jl:172-182).
-
-    ``pallas_ok`` routes the reduction through `cfl3d_pallas` on big
-    unsharded 3D TPU grids: XLA's pad+max fusion over the tiled 258³
-    stream measures ~150 GB/s (4.1 ms/step — round-5 device profile),
-    ~8× the one-pass cost; the kernel's partial-max form is
-    bitwise-equal (max is association-free, same per-term algebra)."""
+def cfl(u, nu, dt_max=10.0):
+    """Adaptive time step (reference `CFL`/`flux_out`, src/Flow.jl:172-182)."""
     D = u.shape[0]
-    if pallas_ok and CFL_PALLAS and D == 3:
-        from .ops.pallas_stencil import use_blocked, cfl3d_pallas
-        S = u.shape[1:]
-        if use_blocked(S, u.dtype):
-            mx = cfl3d_pallas(u, S)
-            return jnp.minimum(jnp.asarray(dt_max, u.dtype),
-                               1.0 / (mx + 5 * nu))
     s = None
     for i in range(D):
         t = (jnp.maximum(0.0, interior_view(u[i], D, _off(D, i, +1)))
@@ -237,15 +209,10 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
 
     imask = interior_mask(cfg.S)
     banded = cfg.bbox_shape is not None
-    # Mosaic kernels have no vjp rule: reverse-AD (implicit_diff) programs
-    # keep the step's elementwise/stencil passes on the XLA forms (the
-    # pressure solve's Pallas tier stays live inside its custom_vjp).
-    pal = not cfg.implicit_diff
-    fok = not cfg.sharded and pal
 
     # sharded fast path: conv + accelerate + BDIM as ONE shard_map region
-    # (GSPMD's XLA forms of the dense blend cost ~3× their traffic bound
-    # on sharded layouts — round-5 device profile, docs/PERF.md)
+    # (the blend as per-shard local slices of one halo-exchanged ``f``
+    # avoids GSPMD resharding the μ₁ contraction's shifted operands)
     shard_cb = False
     if CONV_BDIM_REGION and cfg.sharded and cfg.mesh is not None \
             and not banded:
@@ -253,49 +220,60 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
         shard_cb = can_shardmap(cfg.mesh, cfg.S, cfg.perdir)
 
     # predictor u -> u'
-    if shard_cb:
-        from .parallel.shard_step import shardmap_conv_bdim
-        u = shardmap_conv_bdim(cfg, u0, u0, state.V, state.mu0, state.mu1,
-                               dt, t, None, pallas=None if pal else "off",
-                               bc=U if BC_IN_REGION else None)
-    else:
-        r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter, cfg.sharded,
-                      cfg.mesh, pallas_ok=pal)
-        r = accelerate(r, t, cfg.g, cfg.U, dtype)
-        if banded:
-            u = bdim_banded(cfg, state.bbox, None, u0, r,
-                            state.V, state.mu0, state.mu1, dt)
+    with jax.named_scope("conv_diff"):
+        if shard_cb:
+            from .parallel.shard_step import shardmap_conv_bdim
+            u = shardmap_conv_bdim(cfg, u0, u0, state.V, state.mu0,
+                                   state.mu1, dt, t, None,
+                                   bc=U if BC_IN_REGION else None)
         else:
-            u = jnp.where(imask, 0.0, u0)            # scale_u!(a, 0)
-            u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-    if not (shard_cb and BC_IN_REGION):
-        u = bc_vector(u, U, cfg.exitBC, cfg.perdir, fuse_ok=fok)
-        if cfg.exitBC:
-            u = exit_bc(u, u0, U, dt)
+            r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter, cfg.sharded,
+                          cfg.mesh)
+            r = accelerate(r, t, cfg.g, cfg.U, dtype)
+    if not shard_cb:
+        with jax.named_scope("bdim"):
+            if banded:
+                u = bdim_banded(cfg, state.bbox, None, u0, r,
+                                state.V, state.mu0, state.mu1, dt)
+            else:
+                u = jnp.where(imask, 0.0, u0)            # scale_u!(a, 0)
+                u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+    with jax.named_scope("bc"):
+        if not (shard_cb and BC_IN_REGION):
+            u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+            if cfg.exitBC:
+                u = exit_bc(u, u0, U, dt)
     u, p, (n1, tr1) = project(levels, u, p, dt, cfg)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, fuse_ok=fok)
+    with jax.named_scope("bc"):
+        u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
 
     # corrector u -> u¹
-    if shard_cb:
-        u = shardmap_conv_bdim(cfg, u, u0, state.V, state.mu0, state.mu1,
-                               dt, t + dt, 0.5, pallas=None if pal else "off",
-                               bc=U if BC_IN_REGION else None)
-    else:
-        r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter, cfg.sharded,
-                      cfg.mesh, pallas_ok=pal)
-        r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
-        if banded:
-            u = bdim_banded(cfg, state.bbox, u, u0, r,
-                            state.V, state.mu0, state.mu1, dt, scale=0.5)
+    with jax.named_scope("conv_diff"):
+        if shard_cb:
+            u = shardmap_conv_bdim(cfg, u, u0, state.V, state.mu0,
+                                   state.mu1, dt, t + dt, 0.5,
+                                   bc=U if BC_IN_REGION else None)
         else:
-            u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-            u = jnp.where(imask, 0.5 * u, u)         # scale_u!(a, 0.5)
-    if not (shard_cb and BC_IN_REGION):
-        u = bc_vector(u, U, cfg.exitBC, cfg.perdir, fuse_ok=fok)
+            r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter, cfg.sharded,
+                          cfg.mesh)
+            r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
+    if not shard_cb:
+        with jax.named_scope("bdim"):
+            if banded:
+                u = bdim_banded(cfg, state.bbox, u, u0, r, state.V,
+                                state.mu0, state.mu1, dt, scale=0.5)
+            else:
+                u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+                u = jnp.where(imask, 0.5 * u, u)         # scale_u!(a, 0.5)
+    with jax.named_scope("bc"):
+        if not (shard_cb and BC_IN_REGION):
+            u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
     u, p, (n2, tr2) = project(levels, u, p, 0.5 * dt, cfg)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, fuse_ok=fok)
+    with jax.named_scope("bc"):
+        u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
 
-    dt_new = cfl(u, cfg.nu, pallas_ok=fok)
+    with jax.named_scope("cfl"):
+        dt_new = cfl(u, cfg.nu)
     new = state._replace(u=u, p=p, dt=dt_new, t=t + dt)
     aux = {"pois_n": jnp.stack([n1, n2]), "dt": dt_new}
     if cfg.log:
@@ -313,12 +291,11 @@ def flow_init(cfg: FlowConfig, ulam=None, dt0=0.25):
             ulam = lambda i, x: jnp.asarray(cfg.U[i], dtype)
     u = apply_field(ulam, (D,) + S, dtype, vector=True)
     U0 = bc_tuple(cfg.U, jnp.zeros((), dtype), D, dtype)
-    u = bc_vector(u, U0, cfg.exitBC, cfg.perdir, fuse_ok=not cfg.sharded)
+    u = bc_vector(u, U0, cfg.exitBC, cfg.perdir)
     u = exit_bc(u, u, U0, jnp.zeros((), dtype))   # always applied at init (Flow.jl:115)
     p = jnp.zeros(S, dtype)
     V = jnp.zeros((D,) + S, dtype)
-    mu0 = bc_vector(jnp.ones((D,) + S, dtype), (0.0,) * D, False, cfg.perdir,
-                    fuse_ok=not cfg.sharded)
+    mu0 = bc_vector(jnp.ones((D,) + S, dtype), (0.0,) * D, False, cfg.perdir)
     mu1 = jnp.zeros((D, D) + S, dtype)
     return FlowState(u=u, p=p, V=V, mu0=mu0, mu1=mu1,
                      dt=jnp.asarray(dt0, dtype), t=jnp.zeros((), dtype),

@@ -1,9 +1,9 @@
 """Staggered-grid index algebra and whole-array stencil primitives.
 
-TPU-native replacement for the reference's per-cell kernel layer
+Whole-array replacement for the reference's per-cell kernel layer
 (`/root/reference/src/util.jl:26-61,119-141`).  Instead of macro-generated
 per-`CartesianIndex` kernels, every operation here is a pure function over
-whole arrays that XLA fuses into a handful of HBM passes.
+whole arrays that XLA fuses into a handful of device-memory passes.
 
 Conventions (all 0-based):
 
@@ -11,7 +11,7 @@ Conventions (all 0-based):
   ``N`` plus one ghost cell on each side (reference ``Ng = N .+ 2``,
   src/Flow.jl:113).
 - A *vector* field has shape ``(D, *S)`` — component axis first so each
-  component is a contiguous, TPU-tileable block.
+  component is a contiguous block.
 - A *tensor* field (BDIM first moment) has shape ``(D, D, *S)`` with
   ``mu1[i, j]`` matching the reference's ``μ₁[I,i,j]``.
 - The interior of a field is the slice ``[1:-1]`` along every spatial axis

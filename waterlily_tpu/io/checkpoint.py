@@ -1,6 +1,6 @@
 """Pytree checkpoint/restore for simulation state.
 
-TPU-native equivalent of the reference's VTK-based restart
+Equivalent of the reference's VTK-based restart
 (ext/WaterLilyReadVTKExt.jl): the full `FlowState` pytree plus host-side
 histories are saved, so restart is bit-exact for *every* field (the
 reference restores only p/u and re-measures μ₀).  Plain `.npz` container —
@@ -80,9 +80,7 @@ def restart_sim(sim, fname: str):
     from ..ops.multigrid import build_levels
     # _lv_box (not cfg.bbox_shape): banded Poisson levels are opt-in
     sim.levels = build_levels(sim.flow.mu0, sim.cfg.perdir, sim.cfg.sharded,
-                              getattr(sim, "_lv_box", None), sim.flow.bbox,
-                              getattr(sim, "_smoother_bf16", True),
-                              getattr(sim, "_op_bf16", None))
+                              getattr(sim, "_lv_box", None), sim.flow.bbox)
     sim.dts = [float(x) for x in data["dts"]]
     sim.pois_n = [row for row in data["pois_n"]]
     return sim
@@ -93,7 +91,7 @@ def restart_sim(sim, fname: str):
 # The npz container above is dependency-free and bit-exact, but single-host:
 # on a multi-chip mesh it would funnel every shard through one process.
 # Orbax writes each shard from its owning host (async, OCDBT), which is the
-# production checkpointing path for sharded runs — the TPU-native analog of
+# production checkpointing path for sharded runs — the sharded analog of
 # the reference's single-file VTK restart.
 
 def save_checkpoint_orbax(path: str, sim) -> None:
@@ -147,9 +145,7 @@ def restart_sim_orbax(sim, path: str):
         bbox=_restored_bbox(sim, data, dtype, D))
     from ..ops.multigrid import build_levels
     sim.levels = build_levels(sim.flow.mu0, sim.cfg.perdir, sim.cfg.sharded,
-                              getattr(sim, "_lv_box", None), sim.flow.bbox,
-                              getattr(sim, "_smoother_bf16", True),
-                              getattr(sim, "_op_bf16", None))
+                              getattr(sim, "_lv_box", None), sim.flow.bbox)
     sim.dts = [float(x) for x in data["dts"]]
     sim.pois_n = [row for row in data["pois_n"]]
     return sim

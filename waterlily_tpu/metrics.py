@@ -1,6 +1,6 @@
 """Derived flow fields and body forces/moments.
 
-TPU-native re-design of src/Metrics.jl: every metric is a whole-array
+Re-design of src/Metrics.jl: every metric is a whole-array
 stencil expression; body forces are fused multiply-reduce programs that
 keep the reduction on device and return a tiny vector.
 """
@@ -15,6 +15,9 @@ from .body import measure, kern
 __all__ = ["ke", "grad_tensor", "strain_rate", "lambda2", "curl", "omega",
            "omega_mag", "omega_theta", "nds", "pressure_force",
            "viscous_force", "total_force", "pressure_moment"]
+
+# f32 contractions must not drop to TF32 on GPUs
+_HI = jax.lax.Precision.HIGHEST
 
 
 def ke(u, U=None):
@@ -84,7 +87,8 @@ def lambda2(u):
     g = grad_tensor(u)
     S = 0.5 * (g + jnp.swapaxes(g, 0, 1))
     O = 0.5 * (g - jnp.swapaxes(g, 0, 1))
-    M = jnp.einsum("ik...,kj...->ij...", S, S) + jnp.einsum("ik...,kj...->ij...", O, O)
+    M = (jnp.einsum("ik...,kj...->ij...", S, S, precision=_HI)
+         + jnp.einsum("ik...,kj...->ij...", O, O, precision=_HI))
     out = _sym3_eigvals_mid(M)
     z = jnp.zeros_like(out)
     return z.at[interior(u.shape[0])].set(out[interior(u.shape[0])])
@@ -235,7 +239,7 @@ def viscous_force(u, nu, body, t=0.0, sampling="center"):
     # centers, so plain scalar interp applies componentwise).
     srs = jnp.stack([jnp.stack([_band_sample(sr[i, j], sampling, n, xs)
                                 for j in range(D)]) for i in range(D)])  # (D,D,Ncells)
-    tot = jnp.einsum("ijc,cj->ci", srs, n) * w[:, None]  # (Ncells,D)
+    tot = jnp.einsum("ijc,cj->ci", srs, n, precision=_HI) * w[:, None]  # (Ncells,D)
     totg = jnp.moveaxis(tot.reshape(S + (D,)), -1, 0)
     return jnp.stack([jnp.sum(interior_view(-nu * totg[i], D)) for i in range(D)])
 

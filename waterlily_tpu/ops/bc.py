@@ -6,14 +6,6 @@ Functional equivalents of the reference's boundary slice kernels
 Plane updates use width-1 *slice* windows (`a.at[.., 0:1, ..].set(...)`)
 — static dynamic-update-slices that XLA performs (mostly) in place and
 that the SPMD partitioner handles correctly under uneven spatial sharding.
-XLA still leaves ~4 un-elided full-array copies in the 21-update chain
-(3.3 ms/call at 258³ — ~18% of the whole step over its 4 call sites), and
-every single-pass XLA reformulation measured WORSE (select cascades and
-concat trees both materialize each layout op: 4.4-5.7 ms/call — PERF.md
-round-3 decomposition).  Large 3D single-device grids therefore dispatch
-to a Pallas kernel (`ops.pallas_stencil.bc3d_pallas`) that applies the
-same sequential stage semantics in registers in one read+write sweep;
-the DUS chain remains the SPMD-safe/CPU/2D path.
 """
 from __future__ import annotations
 
@@ -37,13 +29,9 @@ def _per_fill(a: jax.Array, j: int, lead: int = 0) -> jax.Array:
     return a.at[_pl(D, j, S[j] - 1, lead)].set(a[_pl(D, j, 1, lead)])
 
 
-def bc_vector(u: jax.Array, A, save_exit: bool = False, perdir: tuple = (),
-              fuse_ok: bool = False) -> jax.Array:
+def bc_vector(u: jax.Array, A, save_exit: bool = False,
+              perdir: tuple = ()) -> jax.Array:
     """Apply domain BCs to the ghost cells of a vector field ``u`` (D,*S).
-
-    ``fuse_ok``: caller asserts the array is NOT GSPMD-sharded, enabling
-    the fused Pallas sweep on qualifying layouts (GSPMD cannot partition a
-    Mosaic call; sharded programs must keep the DUS path).
 
     Mirrors reference ``BC!`` (src/util.jl:192-210):
     - periodic direction ``j``: ghost planes copy the opposite interior plane;
@@ -57,10 +45,6 @@ def bc_vector(u: jax.Array, A, save_exit: bool = False, perdir: tuple = (),
     """
     D = u.shape[0]
     S = u.shape[1:]
-    if fuse_ok:
-        from .pallas_stencil import use_bc3d, bc3d_pallas
-        if use_bc3d(S, u.dtype):
-            return bc3d_pallas(u, A, save_exit, perdir)
     # in-place plane updates on the stacked array (no unstack/restack copy);
     # component-major, direction-minor order matches the reference exactly
     cpl = lambda i, j, lo: (slice(i, i + 1),) + _pl(D, j, lo)

@@ -1,16 +1,15 @@
 """Convection-diffusion fluxes in gather form, all-slice stencils.
 
-TPU-native re-design of the reference's `conv_diff!` (src/Flow.jl:36-60).
+Re-design of the reference's `conv_diff!` (src/Flow.jl:36-60).
 The reference computes a face flux `Φ` and *scatters* `r[I]+=Φ; r[I-δ]-=Φ`.
-Scatters don't vectorize on TPU, so each direction sweep builds the whole
+Whole-array scatters serialize, so each direction sweep builds the whole
 face-flux window with boundary variants selected by index masks, and the
 momentum tendency is the gathered flux difference ``r = Φ - Φ(+δj)``.
 
 Memory layout: the QUICK stencil reads up to two cells beyond the ghost
 ring, so ``u`` is edge-padded by 2 ONCE per call; after that every shifted
 read in all D sweeps is a pure slice of that one buffer, which XLA fuses
-into single-pass loop fusions (rolls would materialise a copy per shift —
-~10x the HBM traffic at 256³).
+into single-pass loop fusions (rolls would materialise a copy per shift).
 
 Flux-face layout along sweep axis j (0-based, ghost-padded size S):
 face k carries the flux through the lower face of cell k, defined for
@@ -148,8 +147,7 @@ def conv_core(up, S_out: tuple, S_glob: tuple, base, nu, perdir: tuple,
 
 
 def conv_diff(u: jax.Array, nu, perdir: tuple = (), limiter=quick,
-              sharded: bool = False, mesh=None,
-              pallas_ok: bool = True) -> jax.Array:
+              sharded: bool = False, mesh=None) -> jax.Array:
     """Momentum tendency r = -div(convective flux) + nu*laplacian, gather form.
 
     Faithful to reference `conv_diff!` (src/Flow.jl:36-51) including which
@@ -161,29 +159,17 @@ def conv_diff(u: jax.Array, nu, perdir: tuple = (), limiter=quick,
     face k+1 of every cell) instead of materialising a face array — the
     whole tendency, all D sweeps included, becomes ONE elementwise fusion
     over slices of a single edge-padded buffer.  This doubles the limiter
-    FLOPs but reads ``u`` once and writes ``r`` once; the op is ~10:1
-    bandwidth-bound on TPU so trading FLOPs for HBM passes wins ~4x.
+    FLOPs but reads ``u`` once and writes ``r`` once.
 
     ``mesh``: sharded programs on an evenly-dividing mesh route through the
     explicit shard_map path (width-2 ppermute halos, per-shard compute).
-    ``pallas_ok=False`` keeps the XLA form (reverse-AD programs: Mosaic
-    kernels have no vjp rule — threaded from ``FlowConfig.implicit_diff``).
     """
     D = u.shape[0]
     S = u.shape[1:]
-    if D == 3 and pallas_ok:
-        from .pallas_stencil import use_blocked, conv_diff3d_pallas
-        if use_blocked(S, u.dtype, sharded):
-            return conv_diff3d_pallas(u, nu, limiter, S, perdir=perdir)
     if sharded and mesh is not None:
         from ..parallel.shard_smooth import can_shardmap, shardmap_conv_diff
         if can_shardmap(mesh, S, perdir):
-            # pallas_ok=False must reach the per-shard kernel dispatch too:
-            # a reverse-AD program would otherwise hit a vjp-less Mosaic
-            # call inside the shard_map region on real TPU meshes
-            return shardmap_conv_diff(mesh, u, nu, limiter,
-                                      pallas=None if pallas_ok else "off",
-                                      perdir=perdir)
+            return shardmap_conv_diff(mesh, u, nu, limiter, perdir=perdir)
     # single zero-padded buffer: every stencil read below is a slice of
     # this.  The pad planes are never *selected* (boundary faces take the
     # cd / periodic-wrap branches and the write mask clips the rest), so a

@@ -1,6 +1,6 @@
 """Geometric multigrid over nested Poisson levels.
 
-TPU-native re-design of src/MultiLevelPoisson.jl.  The level stack is static
+Re-design of src/MultiLevelPoisson.jl.  The level stack is static
 at trace time (derived from the grid shape), the V-cycle recursion is
 unrolled in Python, and restriction/prolongation are reshape-sum / repeat
 ops that XLA lowers to cheap on-chip data movement.
@@ -18,9 +18,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..grid import interior, interior_view, field_dot, pad_interior
+from ..grid import interior_view, field_dot, pad_interior
 from .bc import bc_vector, bc_scalar_periodic
-from .poisson import make_level, residual, jacobi, smooth, increment, fdot
+from .poisson import make_level, residual, jacobi, smooth, increment
 
 __all__ = ["n_levels", "coarse_shape", "restrict", "restrict_L", "prolongate",
            "build_levels", "update_levels", "vcycle", "ml_solve",
@@ -102,8 +102,7 @@ def restrict_L(L: jax.Array, perdir: tuple = (), sharded: bool = False) -> jax.A
                     v = v.reshape(sh).sum(axis=d + 1)
         comps.append(pad_interior(0.5 * v))
     a = jnp.stack(comps, axis=0)
-    return bc_vector(a, (0.0,) * D, save_exit=False, perdir=perdir,
-                     fuse_ok=not sharded)
+    return bc_vector(a, (0.0,) * D, save_exit=False, perdir=perdir)
 
 
 def prolongate(x_coarse: jax.Array, S_fine: tuple, sharded: bool = False) -> jax.Array:
@@ -148,17 +147,15 @@ def _coarsen_box(box_start, box_shape, S_coarse):
 
 
 def build_levels(mu0: jax.Array, perdir: tuple = (), sharded: bool = False,
-                 box_shape=None, box_start=None,
-                 bf16_eps: bool = True, op_bf16: bool | None = None) -> tuple:
+                 box_shape=None, box_start=None) -> tuple:
     """Build the static level stack from the fine face coefficients.
 
     The fine ``L`` *is* the BDIM zeroth moment ``μ₀`` (src/WaterLily.jl:77);
     each coarse ``L`` is its restriction (reference ``restrictML``, :18-25).
-    ``sharded`` marks GSPMD layouts and disables Pallas dispatch per level.
+    ``sharded`` marks GSPMD layouts (SPMD-partitionable transfer forms).
     ``box_shape``/``box_start`` (the body band window) enable the banded
     sparse-coefficient operator on levels where it pays; the box coarsens
-    with the grid.  ``bf16_eps``/``op_bf16`` select the reduced-precision
-    smoother levers per level (see ``make_level`` — mutually exclusive).
+    with the grid.
     """
     S = mu0.shape[1:]
     nlev = n_levels(S)
@@ -172,8 +169,7 @@ def build_levels(mu0: jax.Array, perdir: tuple = (), sharded: bool = False,
         banded = have_box and _band_ok(Sl, box_shape)
         levels.append(make_level(L, perdir, sharded, banded=banded, c=c,
                                  box_shape=box_shape if banded else None,
-                                 box_start=box_start if banded else None,
-                                 bf16_eps=bf16_eps, op_bf16=op_bf16))
+                                 box_start=box_start if banded else None))
         if li == nlev - 1:
             break
         L = restrict_L(L, perdir, sharded)
@@ -190,15 +186,9 @@ def build_levels(mu0: jax.Array, perdir: tuple = (), sharded: bool = False,
 def update_levels(levels: tuple, mu0: jax.Array, box_start=None) -> tuple:
     """Re-restrict coefficients after body motion (reference ``update!``, :62-68)."""
     fine = levels[0]
-    # carry the fine level's observed reduced-precision choices so a rebuild
-    # cannot silently flip them (op_bf16 from the shadows' presence when the
-    # level could have carried them, the module default otherwise)
-    op16 = (fine.L16 is not None) if fine.blocked else None
     return build_levels(mu0, fine.perdir, fine.sharded,
                         fine.box_shape, box_start if box_start is not None
-                        else fine.box_start,
-                        bf16_eps=fine.bf16_eps or fine.L16 is not None,
-                        op_bf16=op16)
+                        else fine.box_start)
 
 
 def vcycle(levels: tuple, l: int, x, r):
@@ -229,7 +219,7 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, trace=False, fixed=None):
     ``fixed=k`` statically unrolls exactly ``k`` outer iterations instead of
     the `while_loop` — same math, but reverse-mode differentiable: `jax.grad`
     flows through the whole pressure solve (the reference is forward-mode
-    only via ForwardDiff duals, maintests.jl:254-278; this is the TPU
+    only via ForwardDiff duals, maintests.jl:254-278; this is this
     build's beyond-parity differentiator).  The reference's own oracles show
     ≤2-3 iterations suffice, so small ``fixed`` matches the adaptive count.
     """
@@ -237,9 +227,8 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, trace=False, fixed=None):
     if fine.mesh is not None:
         from ..parallel.shard_solve import can_shard_solve, shardmap_ml_solve
         if can_shard_solve(levels, trace):
-            # the whole solve as ONE shard_map region (fine level local +
-            # kernel-tier, coarse levels replicated) — the multi-chip fast
-            # path; per-phase regions cost ~3 ms each on this runtime
+            # the whole solve as ONE shard_map region (fine level local,
+            # coarse levels replicated) — the multi-chip fast path
             return shardmap_ml_solve(levels, x, z, tol=tol, itmx=itmx,
                                      fixed=fixed)
     r = residual(fine, x, z)
@@ -272,20 +261,19 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, trace=False, fixed=None):
         x, r, n, r2p, _, tr = c
         x, r = vcycle(levels, 0, x, r)
         x, r = smooth(fine, x, r)
-        r2 = fdot(fine, r, r)
+        r2 = field_dot(r, r)
         # divergence safeguard: a healthy outer iteration never doubles
-        # r·r (floored solves bounce ≤1.2×; runaway smoothing jumps ≥49×
-        # — scripts/solve_local.py hardware traces).  Exiting here bounds
-        # the damage to one bad iteration instead of amplifying to NaN
-        # over the remaining itmx trips when tol is unattainable (e.g. a
-        # reduced-precision operator floor above a user-tightened tol).
+        # r·r (floored solves bounce ≤1.2×; runaway smoothing jumps ≥49×).
+        # Exiting here bounds the damage to one bad iteration instead of
+        # amplifying to NaN over the remaining itmx trips when tol is
+        # unattainable (e.g. a user-tightened tol below the f32 floor).
         stop = r2 > 2.0 * r2p
         if trace:
             tr = tr.at[n + 1].set(log_row(r))
         return (x, r, n + 1, r2, stop, tr)
 
     x, r, n, r2, _, tr = jax.lax.while_loop(
-        cond, body, (x, r, jnp.int32(0), fdot(fine, r, r), False, tr))
+        cond, body, (x, r, jnp.int32(0), field_dot(r, r), False, tr))
     x = bc_scalar_periodic(x, fine.perdir)
     if trace:
         return x, r, n, tr
@@ -307,9 +295,8 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, trace=False, fixed=None):
 #   (L̄, D̄) = ∂(−A·x*)ᵀ λ  (linear in L/D: one slice-stencil vjp pass)
 #   x̄₀ = 0               (the warm start does not move a converged solve)
 #
-# The forward pass runs the normal adaptive `while_loop` solve — Pallas
-# kernels, shard_map smoothers and all — because custom_vjp hides it from
-# the transpose.  Gauge caveat: with immersed bodies the residual's mean
+# The forward pass runs the normal adaptive `while_loop` solve — shard_map
+# smoothers and all — because custom_vjp hides it from the transpose.  Gauge caveat: with immersed bodies the residual's mean
 # correction makes the solution-map projector slightly non-symmetric (a
 # rank-1 mean coupling); gradients of gauge-invariant outputs (anything
 # built from ∇p or velocities — forces, KE, lift) are unaffected, which the
@@ -366,7 +353,7 @@ def _implicit_bwd(tol, itmx, res, ct):
                         interior_view(lam, D))
     zbar = pad_interior(lam_int)
     # operator cotangents: A(L,D)·x* is linear in (L, D); vjp of the dense
-    # slice-form stencil (bitwise-equal to the banded/blocked forms by the
+    # slice-form stencil (bitwise-equal to the banded form by the
     # dispatch invariants) against −λ.
     xb = bc_scalar_periodic(xs, fine.perdir)
 
@@ -387,7 +374,7 @@ _implicit_solve.defvjp(_implicit_fwd, _implicit_bwd)
 def ml_solve_implicit(levels, x, z, tol=1e-4, itmx=32):
     """Multigrid pressure solve with implicit-differentiation gradients.
 
-    Same primal as `ml_solve` (adaptive `while_loop`, full kernel dispatch)
+    Same primal as `ml_solve` (adaptive `while_loop`, same dispatch)
     but `jax.grad` costs ONE adjoint Poisson solve instead of transposing an
     unrolled solver — the memory-feasible reverse-AD path at scale (the
     `fixed=` unroll stores every smoother iterate).  Returns ``(x, n)``.

@@ -1,6 +1,6 @@
 """Matrix-free variable-coefficient Poisson operator and smoothers.
 
-TPU-native re-design of the reference solver (src/Poisson.jl).  The linear
+Re-design of the reference solver (src/Poisson.jl).  The linear
 system is ``Ax = [L+D+L']x = z`` where ``L`` holds the face coefficients
 (these *are* the BDIM zeroth moments — src/WaterLily.jl:77) and the diagonal
 is derived: ``D[I] = -Σᵢ(L[I,i]+L[I+δᵢ,i])``.
@@ -12,18 +12,19 @@ Design notes, driven by XLA semantics:
   updates once tripped — same control flow, fixed trip count.
 - Ghost-zeroing uses fused ``where(interior_mask, ., 0)`` forms, never
   slice assignments; every smoother iteration compiles to a handful of
-  fused VMEM passes.  Residual/solution invariants: ``r``, ``z`` and all
+  fused loop passes.  Residual/solution invariants: ``r``, ``z`` and all
   ``mult`` outputs are identically zero in ghost cells, so full-array
   `vdot`s equal the reference's interior dot products.
 - All dot products stay on device; nothing syncs to the host.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from ..grid import (shift, interior_view, interior_mask, mask_interior,
+from ..grid import (interior_view, mask_interior,
                     inside_count, field_dot, pad_interior)
 from .bc import bc_scalar_periodic
 
@@ -34,34 +35,20 @@ def _off(D, i, v):
 __all__ = ["PoissonLevel", "make_level", "mult", "residual", "jacobi", "pcg",
            "smooth", "increment", "poisson_solve"]
 
-# Gate for the operator-coefficient shadows (PoissonLevel.L16/D16/iD16).
-# Kernel logic + algebra are pinned (interpret-mode f32-parity at 66³ with
-# every level blocked, tests/test_pallas_stencil.py), and the same-session
-# A/B measured 63.3 → 56.7 ms/step at 256³ — but the REAL-TPU run of the
-# full step still NaNs at step 1 (suspected Mosaic lowering of the
-# mixed-dtype stencil; docs/PERF.md round-3 addendum), so dispatch stays
-# off until that is root-caused on hardware.
-# bf16 operator-coefficient shadows: OFF — root-caused as a NUMERICS limit,
-# not a compile bug (round-3 hardware battery, scripts/solve_local.py +
-# ab_bf16op.py; docs/PERF.md).  The bf16-rounded operator at 256³-class
-# conditioning (a) floors multigrid convergence above the default tol when
-# compounded with bf16 search directions, and (b) even with f32 directions
-# degrades per-solve iteration counts (pois_n ~(3,3) vs (2,2)) — eating the
-# bandwidth win (measured 0.78× step time) — and marginally destabilizes
-# the trajectory over ~50 steps.  Flip per-sim with Simulation(op_bf16=True)
-# for experimentation; make_level enforces f32 directions on shadowed
-# levels and the solve loops carry a divergence safeguard.
-BF16_OP = False
+def _static(default):
+    """A dataclass field kept as static pytree metadata (part of the jit
+    cache key, never traced)."""
+    return dataclasses.field(default=default, metadata=dict(static=True))
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class PoissonLevel:
     """One multigrid level: face coefficients + derived (inverse) diagonal.
 
-    ``blocked`` (static) selects the big-3D blocked Pallas stencil path;
-    ``sharded`` (static) marks spatially-decomposed layouts, disabling ALL
-    Pallas dispatch (GSPMD cannot partition Mosaic custom calls); ``perdir``
-    is static pytree metadata (it selects program structure).
+    ``sharded`` (static) marks spatially-decomposed layouts (it selects the
+    SPMD-partitionable grid-transfer forms); ``perdir`` is static pytree
+    metadata (it selects program structure).
 
     ``banded`` (static) selects the sparse immersed-boundary path: away from
     the body band the face coefficients are *exactly* the constant ``c``
@@ -73,48 +60,21 @@ class PoissonLevel:
     L: jax.Array      # (D, *S) lower-diagonal face coefficients
     D: jax.Array      # (*S) diagonal, zero in ghosts
     iD: jax.Array     # (*S) guarded inverse diagonal (0 inside bodies)
-    blocked: bool = struct.field(pytree_node=False, default=False)
-    perdir: tuple = struct.field(pytree_node=False, default=())
-    sharded: bool = struct.field(pytree_node=False, default=False)
-    banded: bool = struct.field(pytree_node=False, default=False)
-    # store the smoother's search direction in bf16 (blocked levels only).
-    # x/r stay f32 and z = A·eps_bf16 is computed in f32 from the SAME
-    # rounded direction used for the x update, so r == z_rhs - A x holds to
-    # f32 precision — only the direction quality is (negligibly) affected.
-    bf16_eps: bool = struct.field(pytree_node=False, default=False)
-    # Reduced-precision shadows of the operator coefficients, read by the
-    # blocked smoother/operator kernels (mult/residual/increment/_rid) in
-    # place of L/D/iD — taps are upcast to f32 in registers, so the level
-    # operator is the bf16-ROUNDED A applied in f32 arithmetic, used
-    # consistently by residual and every increment (r == z − A₁₆·x stays
-    # f32-exact).  L/D/iD themselves stay f32: the projection gradient,
-    # coefficient restriction and the iD==0 dead-cell masks are unchanged.
-    # CRITICAL CONSTRAINT: D16 is the f32 diagonal DERIVED FROM L16 (sums
-    # of bf16-representable values in f32 are exact), NOT bf16(D).
-    # Rounding D independently of the taps breaks the operator's exact zero
-    # row sums → A₁₆ loses weak diagonal dominance → the PCG smoother can
-    # DIVERGE: at 256³ the second step's pressure solve amplified to NaN in
-    # ~25 iterations (reproduced on CPU at 66³; the consistent-D form
-    # matches the f32 pois_n trajectory exactly).  iD16 is bf16 of 1/D16 —
-    # a preconditioner, so its rounding only perturbs convergence paths.
-    # MUTUALLY EXCLUSIVE with ``bf16_eps``: compounding bf16 directions
-    # with the bf16 operator lifts the multigrid convergence floor above
-    # the default tol at 256³ and the never-converging solve blows up
-    # (scripts/solve_local.py; make_level enforces the exclusion).  Halves
-    # the smoother's dominant HBM stream (L is 12 of ~24 B/cell of each
-    # stencil call).
-    L16: jax.Array | None = None
-    D16: jax.Array | None = None
-    iD16: jax.Array | None = None
+    perdir: tuple = _static(())
+    sharded: bool = _static(False)
+    banded: bool = _static(False)
     # the device mesh for spatially-decomposed levels whose shape the mesh
     # divides evenly: routes the smoother through `parallel.shard_smooth`
-    # (shard_map + ppermute halos + per-shard Pallas kernels) — the
-    # multi-chip fast path GSPMD cannot express (Mosaic calls cannot be
-    # partitioned).  Set by `parallel.mesh.constrain_levels`.
-    mesh: object = struct.field(pytree_node=False, default=None)
-    c: float = struct.field(pytree_node=False, default=1.0)
-    box_shape: tuple | None = struct.field(pytree_node=False, default=None)
+    # (shard_map + ppermute halos + psum dots).  Set by
+    # `parallel.mesh.constrain_levels`.
+    mesh: object = _static(None)
+    c: float = _static(1.0)
+    box_shape: tuple | None = _static(None)
     box_start: jax.Array | None = None  # (D,) int32, dynamic
+
+    def replace(self, **changes) -> "PoissonLevel":
+        """A copy with ``changes`` applied (fields by name)."""
+        return dataclasses.replace(self, **changes)
 
 
 def _diag(L: jax.Array) -> jax.Array:
@@ -133,24 +93,8 @@ def _diag(L: jax.Array) -> jax.Array:
 
 def make_level(L: jax.Array, perdir: tuple = (), sharded: bool = False,
                banded: bool = False, c: float = 1.0, box_shape=None,
-               box_start=None, bf16_eps: bool = True,
-               op_bf16: bool | None = None) -> PoissonLevel:
-    """Build a level from face coefficients (reference ``set_diag!``).
-
-    ``bf16_eps`` enables the reduced-precision smoother search direction on
-    blocked (big-3D TPU) levels — see the field docstring; halves the
-    direction-field traffic of the dominant fine-level PCG smoothers.
-
-    ``op_bf16`` (None → module default ``BF16_OP``) builds the bf16
-    operator-coefficient shadows (L16/D16/iD16) on those same levels.
-    MUTUAL-EXCLUSION CONSTRAINT: a shadowed level forces ``bf16_eps=False``
-    (f32 search directions).  Either rounding alone keeps the multigrid
-    convergence floor below the default ``tol`` (measured at 256³:
-    f32 op + bf16 eps floors at r·r≈1.1e-5, bf16 op + f32 eps at 1.3e-5,
-    both n=3 like f32), but COMPOUNDED they floor at ≈1.5e-3 — above tol —
-    so the solve never converges and late PCG iterations blow up
-    (scripts/solve_local.py hardware trace, docs/PERF.md round 3)."""
-    from .pallas_stencil import use_blocked
+               box_start=None) -> PoissonLevel:
+    """Build a level from face coefficients (reference ``set_diag!``)."""
     Dd = _diag(L)
     eps = jnp.finfo(L.dtype).eps
     guard = Dd * Dd < 2 * eps
@@ -159,34 +103,9 @@ def make_level(L: jax.Array, perdir: tuple = (), sharded: bool = False,
         box_start = jnp.asarray(box_start, jnp.int32)
     else:
         banded, box_shape, box_start = False, None, None
-    blocked = (not banded) and use_blocked(L.shape[1:], L.dtype, sharded)
-    f32blk = blocked and L.dtype == jnp.float32
-    shadow = f32blk and (BF16_OP if op_bf16 is None else bool(op_bf16))
-    bf16 = bool(bf16_eps) and f32blk and not shadow
-    if shadow:
-        L16 = L.astype(jnp.bfloat16)
-        # diagonal derived from the ROUNDED taps, kept f32 — exact zero row
-        # sums preserve weak diagonal dominance (see the field docstring;
-        # bf16(D) makes the smoother diverge)
-        D16 = _diag(L16.astype(L.dtype))
-        g16 = D16 * D16 < 2 * eps
-        iD16 = jnp.where(g16, 0.0,
-                         1.0 / jnp.where(g16, 1.0, D16)).astype(jnp.bfloat16)
-        shadows = dict(L16=L16, D16=D16, iD16=iD16)
-    else:
-        shadows = {}
-    return PoissonLevel(L=L, D=Dd, iD=iD, blocked=blocked,
-                        perdir=perdir, sharded=sharded, banded=banded,
-                        c=float(c), box_shape=box_shape, box_start=box_start,
-                        bf16_eps=bf16, **shadows)
-
-
-def _opLD(lev: PoissonLevel):
-    """(L, D) streams for the blocked stencil kernels: the bf16 shadows when
-    built (taps upcast to f32 inside the kernel), the f32 arrays otherwise."""
-    if lev.L16 is not None:
-        return lev.L16, lev.D16
-    return lev.L, lev.D
+    return PoissonLevel(L=L, D=Dd, iD=iD, perdir=perdir, sharded=sharded,
+                        banded=banded, c=float(c), box_shape=box_shape,
+                        box_start=box_start)
 
 
 def _mult_interior_arrays(L, Dd, x) -> jax.Array:
@@ -269,42 +188,19 @@ def _banded_mult_interior(lev: PoissonLevel, x: jax.Array) -> jax.Array:
     return _box_update(lev, s, _box_ax(lev, x))
 
 
-def _banded_ax(lev: PoissonLevel, x: jax.Array, with_dot: bool = False):
-    """Full-grid ghost-zero A·x for a banded level, via the analytic Pallas
-    stencil on big-3D TPU grids (no coefficient reads) with an XLA window
-    fix-up, or the XLA far-field expression elsewhere.  ``with_dot`` also
-    returns ⟨A·x, x⟩ (the PCG denominator) with in-kernel partial sums."""
-    from .pallas_stencil import use_ana, ana_mult3d_pallas
-    S = x.shape
-    D = len(S)
-    if use_ana(S, x.dtype):
-        start_g = tuple(lev.box_start[d] + 1 for d in range(D))
-        zw = _box_ax(lev, x)
-        if with_dot:
-            z, dot = ana_mult3d_pallas(x, lev.c, lev.perdir, with_dot=True)
-            # fix the partial dot for the window overwrite
-            xw_int = interior_view(_win(lev, x), D)
-            z_old_w = jax.lax.dynamic_slice(z, start_g, lev.box_shape)
-            dot = dot + field_dot(zw - z_old_w, xw_int)
-            z = jax.lax.dynamic_update_slice(z, zw, start_g)
-            return z, dot
-        z = ana_mult3d_pallas(x, lev.c, lev.perdir)
-        return jax.lax.dynamic_update_slice(z, zw, start_g)
-    z = pad_interior(_banded_mult_interior(lev, x))
-    if with_dot:
-        return z, field_dot(z, x)
-    return z
+def _banded_ax(lev: PoissonLevel, x: jax.Array) -> jax.Array:
+    """Full-grid ghost-zero A·x for a banded level: the far-field constant
+    expression with the true-coefficient body window written over it."""
+    return pad_interior(_banded_mult_interior(lev, x))
 
 
 def _rid(lev: PoissonLevel, r: jax.Array) -> jax.Array:
     """r * iD (the Jacobi-preconditioned residual), banded-aware.
 
     Far field: iD = 1/D with the analytic diagonal (no body guard needed —
-    the guard only trips inside the body, which lies in the box).  Blocked
-    levels with bf16 shadows read iD16 (bf16×f32 promotes to f32; zeros —
-    the dead-cell guard — are exact in bf16)."""
+    the guard only trips inside the body, which lies in the box)."""
     if not lev.banded:
-        return r * (lev.iD16 if lev.iD16 is not None else lev.iD)
+        return r * lev.iD
     D = len(r.shape)
     iD_far = 1.0 / _ana_D_interior(r.shape, lev.perdir, r.dtype, lev.c)
     s = interior_view(r, D) * iD_far.astype(r.dtype)
@@ -317,9 +213,6 @@ def mult(lev: PoissonLevel, x: jax.Array) -> jax.Array:
     x = bc_scalar_periodic(x, lev.perdir)
     if lev.banded:
         return _banded_ax(lev, x)
-    if lev.blocked:
-        from .pallas_stencil import mult3d_pallas
-        return mult3d_pallas(*_opLD(lev), x, x.shape)
     return pad_interior(_mult_interior(lev, x))
 
 
@@ -340,13 +233,8 @@ def residual(lev: PoissonLevel, x: jax.Array, z: jax.Array) -> jax.Array:
                        interior_view(_win(lev, z), D) - _box_ax(lev, xb))
         r_int = _box_update(lev, r_int, rw)
     else:
-        if lev.blocked:
-            from .pallas_stencil import mult3d_pallas
-            ax = interior_view(mult3d_pallas(*_opLD(lev), xb, x.shape), D)
-        else:
-            ax = _mult_interior(lev, xb)
         r_int = jnp.where(interior_view(lev.iD, D) == 0, 0.0,
-                          interior_view(z, D) - ax)
+                          interior_view(z, D) - _mult_interior(lev, xb))
     s = jnp.sum(r_int) / inside_count(x.shape)
     eps = jnp.finfo(x.dtype).eps
     corr = jnp.where(jnp.abs(s) <= 2 * eps, 0.0, s).astype(x.dtype)
@@ -364,14 +252,6 @@ def increment(lev: PoissonLevel, x, r, eps):
         from ..parallel.shard_smooth import shardmap_increment, can_shardmap
         if can_shardmap(lev.mesh, x.shape, lev.perdir):
             return shardmap_increment(lev, x, r, eps)
-    if lev.blocked:
-        from .pallas_stencil import increment3d_pallas
-        if lev.bf16_eps:
-            # rounded correction: x and r both updated with the SAME eps
-            # (and A·eps computed in f32 from it), so r stays consistent
-            eps = eps.astype(jnp.bfloat16)
-        eps = bc_scalar_periodic(eps, lev.perdir)
-        return increment3d_pallas(*_opLD(lev), eps, x, r, x.shape)
     ae = mult(lev, eps)
     return x + eps, r - ae
 
@@ -406,48 +286,6 @@ def jacobi(lev: PoissonLevel, x, r, it: int = 1):
     return x, r
 
 
-# Blocked-kernel solver dots: measured LOSS at 256³ and shipped OFF.
-# XLA's multiply_reduce fusions recompute r∘iD inline; a Mosaic dot that
-# takes the product as an operand forces a materialization pass (+4.6
-# ms/step), and even the fused `mode='rid'` form re-reading r/iD costs
-# ~1.9 ms/step over XLA (scripts/ab_reduce.py, docs/PERF.md round 5) —
-# in-program Mosaic reduce calls don't beat XLA's fused reduces here.
-KDOT = False
-
-# Fused PCG axpy-pair + next-rho sweep (attic.pcg_axpy_pallas): also a
-# measured LOSS (+7.3 ms/step at 256³, ab_reduce.py) — the hypothesis
-# that an in-kernel reduce riding a streaming sweep would pay (like the
-# matvec's with_dot) does not hold for a pure elementwise sweep: XLA's
-# axpy fusions are faster than the Mosaic 5-stream kernel.
-KAXPY = False
-
-
-def fdot(lev: PoissonLevel, a, b):
-    """Solver dot products: the blocked partial-sum kernel on blocked
-    levels (XLA's multiply_reduce over the tiled 258³ streams measures
-    ~200-340 GB/s vs ~600 for the matvec kernels in the same program —
-    round-5 device profile, docs/PERF.md), `grid.field_dot` elsewhere.
-    Operands must be ghost-zero (r/z/eps all are); results differ from
-    field_dot only in sum association."""
-    if KDOT and lev.blocked:
-        from .attic import dot3d_pallas
-        return dot3d_pallas(a, b, a.shape)
-    return field_dot(a, b)
-
-
-def _rho_rid(lev: PoissonLevel, r, z):
-    """⟨r, r∘iD⟩ for the PCG rho/rho2 given the (possibly traced-through)
-    ``z = r∘iD``.  The kernel path re-reads r/iD instead of taking z —
-    forcing z to materialize costs a full HBM pass per dot (z otherwise
-    only feeds the fused eps update), measured +4.6 ms/step at 256³
-    (scripts/ab_reduce.py round-5 first attempt)."""
-    if KDOT and lev.blocked:
-        from .attic import dot3d_pallas
-        iD = lev.iD16 if lev.iD16 is not None else lev.iD
-        return dot3d_pallas(r, iD, r.shape, mode="rid")
-    return field_dot(r, z)
-
-
 def pcg(lev: PoissonLevel, x, r, it: int = 6):
     """Jacobi-preconditioned conjugate gradient smoother.
 
@@ -458,78 +296,46 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
     dt = x.dtype
     teneps = 10 * jnp.finfo(dt).eps
 
-    # The fused-iteration sweeps (`ops.attic.pcg_blocked`: eps rebuild,
-    # axpys and both dots inside two blocked kernels, zero full-array XLA
-    # passes) are NOT dispatched: the same-session 256³ step A/B measured
-    # 0.968× (64.97 → 67.14 ms/step, identical pois_n — scripts/
-    # ab_pcgiter.py, docs/PERF.md round 4).  The per-pass remainder below is
-    # already fusion-optimal in XLA, and the two-sweep split re-reads the
-    # x/r/eps/z streams across sweeps plus halo rows at the VMEM-forced
-    # B=1 — the same verdict as the carried-rows streaming kernels.
-    # Retired to ops/attic.py with an interpret-mode parity test.
-
     z = _rid(lev, r)
-    eps = z.astype(jnp.bfloat16) if lev.bf16_eps else z
-    rho = _rho_rid(lev, r, z)
+    eps = z
+    rho = field_dot(r, z)
     dead = jnp.abs(rho) < teneps
 
     for i in range(it):
         eps = bc_scalar_periodic(eps, lev.perdir)
-        if lev.banded:
-            z, denom = _banded_ax(lev, eps, with_dot=True)
-        elif lev.blocked:
-            from .pallas_stencil import mult3d_pallas
-            z, denom = mult3d_pallas(*_opLD(lev), eps, eps.shape,
-                                     with_dot=True)
-        else:
+        with jax.named_scope("pcg_matvec"):   # read by chip_trace.py
             z = mult(lev, eps)
             denom = field_dot(z, eps)
         alpha = jnp.where(dead | (denom == 0), 0.0,
                           rho / jnp.where(denom == 0, 1.0, denom)).astype(dt)
         dead = dead | (jnp.abs(alpha) < 1e-2) | (jnp.abs(alpha) > 1e2)
         upd = jnp.where(dead, 0.0, alpha).astype(dt)
-        last = i == it - 1
-        if KAXPY and lev.blocked and not last:
-            # axpy pair + next rho in one streaming kernel (in-kernel
-            # reduce rides the sweep — see pcg_axpy_pallas); z2 for the
-            # eps rebuild below is recomputed by XLA inside that fusion,
-            # exactly as on the XLA path (never materialized)
-            from .attic import pcg_axpy_pallas
-            iDk = lev.iD16 if lev.iD16 is not None else lev.iD
-            x, r, rho2 = pcg_axpy_pallas(x, r, eps, z, iDk, upd)
-            z2 = _rid(lev, r)
-        else:
-            x = x + upd * eps
-            r = r - upd * z
-            if last:
-                break
-            z2 = _rid(lev, r)
-            rho2 = _rho_rid(lev, r, z2)
+        x = x + upd * eps
+        r = r - upd * z
+        if i == it - 1:
+            break
+        z2 = _rid(lev, r)
+        rho2 = field_dot(r, z2)
         dead = dead | (jnp.abs(rho2) < teneps)
         beta = jnp.where(dead, 0.0, rho2 / jnp.where(rho == 0, 1.0, rho)).astype(dt)
         # no full-array freeze of eps/z is needed once dead: the scalar
         # ``upd`` guard already freezes x and r (the only outputs), beta=0
         # keeps eps finite, and z is overwritten by mult next iteration —
-        # dropping the selects saves a whole HBM pass per iteration.
+        # dropping the selects saves a whole pass per iteration.
         eps = mask_interior(beta * eps + z2)
-        if lev.bf16_eps:
-            eps = eps.astype(jnp.bfloat16)
         rho = jnp.where(dead, rho, rho2)
     return x, r
 
 
 def smooth(lev: PoissonLevel, x, r, it: int = 6):
-    """Default smoother (reference ``smooth! = pcg!``): the fused Pallas PCG
-    on TPU when the level fits VMEM, the XLA path otherwise.  Sharded
-    levels with an evenly-dividing mesh route through the shard_map +
-    ppermute explicit-collective smoother (per-shard Pallas on real TPU
-    meshes) — the multi-chip fast path."""
+    """Default smoother (reference ``smooth! = pcg!``).  Sharded levels with
+    an evenly-dividing mesh route through the shard_map + ppermute
+    explicit-collective smoother — the multi-chip fast path."""
     if lev.mesh is not None:
         from ..parallel.shard_smooth import shardmap_pcg, can_shardmap
         if can_shardmap(lev.mesh, x.shape, lev.perdir):
             return shardmap_pcg(lev, x, r, it)
-    from .pallas_kernels import pcg_auto
-    return pcg_auto(lev, x, r, it, xla_pcg=pcg)
+    return pcg(lev, x, r, it)
 
 
 def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000, smoother=smooth):
@@ -548,12 +354,12 @@ def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000, smoother=smooth)
     def body(c):
         x, r, n, r2p, _ = c
         x, r = smoother(lev, x, r)
-        r2 = fdot(lev, r, r)
+        r2 = field_dot(r, r)
         # divergence safeguard (see ml_solve): exit when an iteration
         # doubles r·r instead of amplifying to NaN when tol is unattainable
         return (x, r, n + 1, r2, r2 > 2.0 * r2p)
 
     x, r, n, r2, _ = jax.lax.while_loop(
-        cond, body, (x, r, jnp.int32(0), fdot(lev, r, r), False))
+        cond, body, (x, r, jnp.int32(0), field_dot(r, r), False))
     x = bc_scalar_periodic(x, lev.perdir)
     return x, r, n

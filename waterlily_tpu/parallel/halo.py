@@ -6,9 +6,10 @@ module is the *explicit* alternative — `shard_map` gives each device its
 local block and the halo planes move through hand-written
 `jax.lax.ppermute` collectives.  Two reasons it exists:
 
-1. **Control.**  When the partitioner picks a bad layout (see the
-   all-gather fallbacks documented in docs/PERF.md), the explicit path is
-   the escape hatch: every byte on ICI is visible in the source.
+1. **Control.**  When the partitioner picks a bad layout (an all-gather
+   fallback on an unevenly-sharded axis, say), the explicit path is the
+   escape hatch: every byte moved between devices is visible in the
+   source.
 2. **Verification.**  `tests/test_sharding.py` pins it against the dense
    operator, which in turn documents precisely what communication the
    stencil *needs*: two width-1 planes of ``x`` per sharded axis (one per
@@ -25,22 +26,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding
 
 from ..grid import axis_coord
 
 __all__ = ["halo_exchange", "shardmap_mult", "spatial_specs",
-           "shift_up", "ghost_mask_local", "get_shard_map",
-           "per_fill_local"]
-
-
-def get_shard_map():
-    """`jax.shard_map`, falling back to the pre-0.4.35 experimental path."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-    return shard_map
+           "shift_up", "ghost_mask_local", "per_fill_local"]
 
 
 def spatial_specs(mesh: Mesh, D: int):
@@ -97,7 +88,7 @@ def halo_exchange(x_local, mesh: Mesh, D: int, width: int = 1, perdir=()):
     """Grow every spatial axis of a shard_map-local block by ``width`` planes.
 
     Sharded axes receive the neighbouring shards' edge planes via
-    `jax.lax.ppermute` (a pure ICI ring shift — no gather); unsharded axes
+    `jax.lax.ppermute` (a pure ring shift — no gather); unsharded axes
     and domain edges get zeros, which is safe because the global ghost ring
     lives inside the first/last local block so edge halos are never read
     for interior outputs.  ``width=2`` serves the QUICK convection stencil
@@ -233,7 +224,7 @@ def shardmap_mult(mesh: Mesh, L, Dd, x):
         # zero the global ghost ring (cells at global index 0 or S-1)
         return jnp.where(ghost_mask_local(mesh, S, loc_shape), z, 0.0)
 
-    fn = get_shard_map()(local, mesh=mesh, in_specs=(vec, sc, sc),
+    fn = jax.shard_map(local, mesh=mesh, in_specs=(vec, sc, sc),
                          out_specs=sc)
     L = jax.device_put(L, NamedSharding(mesh, vec))
     Dd = jax.device_put(Dd, NamedSharding(mesh, sc))

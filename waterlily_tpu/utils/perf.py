@@ -1,7 +1,7 @@
 """Performance accounting: step timing, MLUPS, and profiler hooks.
 
 The reference's performance harness lives in an external benchmarks repo
-(README.md:145-151); its in-repo proxy is an allocation gate.  The TPU
+(README.md:145-151); its in-repo proxy is an allocation gate.  The
 equivalents provided here: steady-state step timing via `lax.scan` batches,
 cell-updates-per-second (MLUPS — the headline metric of the 2024 WaterLily
 paper), and `jax.profiler` trace capture for kernel-level analysis.
